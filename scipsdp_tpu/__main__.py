@@ -16,7 +16,7 @@ import sys
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="scipsdp_tpu",
-        description="TPU-native mixed-integer SDP solver (SCIP-SDP capability)")
+        description="GPU-batched mixed-integer SDP solver (SCIP-SDP capability)")
     ap.add_argument("instance", help="problem file (.dat-s/.cbf/.cip[.gz])")
     ap.add_argument("--lp-approx", action="store_true",
                     help="LP outer approximation mode (misc/solvesdps = 0)")
@@ -43,7 +43,7 @@ def main(argv=None) -> int:
                     help="SCIP-style .set parameter file "
                          "(reference settings/*.set work)")
     ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU backend")
+                    help="run on the CPU (without it a GPU is required)")
     ap.add_argument("--mesh", action="store_true",
                     help="shard node batches over all visible devices")
     ap.add_argument("--warmstart", action="store_true",
@@ -63,9 +63,18 @@ def main(argv=None) -> int:
                          "(reference changelog.txt:6-11 CBF-writer parity)")
     args = ap.parse_args(argv)
 
+    import jax
+
     if args.cpu:
-        import jax
         jax.config.update("jax_platforms", "cpu")
+    elif jax.default_backend() != "gpu":
+        print(f"error: no GPU found (jax backend "
+              f"{jax.default_backend()!r}); pass --cpu to run on the CPU",
+              file=sys.stderr)
+        return 2
+    else:
+        from scipsdp_tpu import enable_compilation_cache
+        enable_compilation_cache()
 
     from scipsdp_tpu.core.branchbound import solve_misdp
     from scipsdp_tpu.models.io import read_problem
@@ -126,7 +135,7 @@ def main(argv=None) -> int:
     res = solve_misdp(prob, settings, log=not args.quiet,
                       checkpoint=args.checkpoint, resume=args.resume)
 
-    print(f"\nSCIP-SDP-TPU status : {res.status.name}")
+    print(f"\nSCIP-SDP status     : {res.status.name}")
     if res.objval is not None:
         print(f"objective value     : {res.objval:.10g}")
     print(f"dual bound          : {res.dual_bound:.10g}")

@@ -1,11 +1,11 @@
 """Vectorized branch-and-bound for MISDPs.
 
 This layer owns the tree loop that SCIP provides for the reference
-(SURVEY.md section 1: "The TPU-native build must own the B&B loop itself").
+(SURVEY.md section 1: the device-native build must own the B&B loop itself).
 Design: a *host-side* best-first frontier (the reference's re-defaulted node
 selection, scipsdpdefplugins.c:152-158 — best-first because SDP warmstarts
 are weak) and *device-side batched* relaxation solves of many open nodes per
-step — the TPU analog of SCIP's concurrent-solver portfolio
+step — the device analog of SCIP's concurrent-solver portfolio
 (SCIPsdpiClone, sdpi.c:2144).
 
 Two relaxation modes, switched by ``settings.solve_sdps`` exactly like the
@@ -65,6 +65,8 @@ class BBStats:
     nunsolved: int = 0
     ndirect: int = 0          # fastest-tier (direct rung) decisions
     #                           (disp_sdpfastsettings role)
+    turbo_nodes: int = 0      # nodes processed by the device tree loop
+    turbo_bails: int = 0      # device tree loop hand-backs to the host loop
     heur_found: int = 0
     ncuts: int = 0
     sep_rounds: int = 0
@@ -779,9 +781,9 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
                 and checkpoint is None and not resume
                 and sync_hook is None and sym_group is None
                 and bb.slatercheck == 0)
-    # engagement policy: on accelerators turbo starts immediately (the
-    # environment is dispatch-latency-bound and compiles are cached); on
-    # CPU the big fused-chunk compile only amortizes on large trees, so
+    # engagement policy: on the GPU turbo starts immediately (the host
+    # loop pays a dispatch and a host sync per batch and per ladder rung);
+    # on CPU the big fused-chunk compile only amortizes on large trees, so
     # the host loop runs first and hands its frontier to turbo once the
     # tree proves big (measured: MkP 48 nodes turbo 41s vs host 11s on
     # CPU, while 422-node example_indicator is 2x faster ON turbo)
@@ -796,8 +798,11 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
             data=(None if sol.mesh is not None else sol.iface.data),
             rounds_per_dispatch=bb.turbo_rounds,
             mesh=sol.mesh)
-        if tres is not None:
+        if tres is None:
+            stats.turbo_bails += 1
+        else:
             stats.nodes += tres.nodes
+            stats.turbo_nodes += tres.nodes
             stats.relax_solves += tres.rounds
             stats.ipm_iterations += tres.iters
             stats.solver_calls += tres.nsolves
@@ -956,10 +961,12 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
                     mesh=sol.mesh, init_nodes=init_nodes)
                 turbo_deferred = False
                 if tres is None:
+                    stats.turbo_bails += 1
                     for (nlb, nub, nprio, ndepth, side) in popped:
                         frontier.push(nlb, nub, nprio, ndepth, side=side)
                 else:
                     stats.nodes += tres.nodes
+                    stats.turbo_nodes += tres.nodes
                     stats.relax_solves += tres.rounds
                     stats.ipm_iterations += tres.iters
                     stats.solver_calls += tres.nsolves

@@ -1,6 +1,6 @@
 """Formulation-symmetry detection and breaking.
 
-TPU-era replacement for the reference's symmetry stack
+Replacement for the reference's symmetry stack
 (src/symmetry/compute_symmetry_bliss.cpp builds a colored graph of the
 MISDP and calls the bliss graph-automorphism library;
 src/scipsdp/sdpsymmetry.c collects the SDP data for it;

@@ -3,8 +3,7 @@
 The reference ships one instance per family (check/testset/short.test:
 truss topology example_TT, cardinality least squares example_CLS,
 min-k-partition example_MkP, rank-1 instances).  These generators produce
-the same families at arbitrary sizes for scaling studies — the TPU
-framework's "model zoo".
+the same families at arbitrary sizes for scaling studies.
 
 All generators return MISDPs in the internal minimization dual form.
 """
@@ -21,6 +20,17 @@ from scipsdp_tpu.models.problem import (
 )
 
 
+def cls_data(nfeatures: int, nsamples: int, k: int, seed: int):
+    """The least-squares data (A, b) of :func:`cardinality_least_squares`:
+    a random design and a noisy response of a random k-sparse signal."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((nsamples, nfeatures))
+    xtrue = np.zeros(nfeatures)
+    sup = rng.choice(nfeatures, size=k, replace=False)
+    xtrue[sup] = rng.standard_normal(k)
+    return A, A @ xtrue + 0.1 * rng.standard_normal(nsamples)
+
+
 def cardinality_least_squares(nfeatures: int = 8, nsamples: int = 16,
                               k: int = 4, M: float = 10.0,
                               seed: int = 0) -> MISDP:
@@ -33,12 +43,7 @@ def cardinality_least_squares(nfeatures: int = 8, nsamples: int = 16,
     big-M rows — the structure of Gally's CLS instances.
     Variables: x (nfeatures), z (nfeatures, binary), t (epigraph).
     """
-    rng = np.random.default_rng(seed)
-    A = rng.standard_normal((nsamples, nfeatures))
-    xtrue = np.zeros(nfeatures)
-    sup = rng.choice(nfeatures, size=k, replace=False)
-    xtrue[sup] = rng.standard_normal(k)
-    bvec = A @ xtrue + 0.1 * rng.standard_normal(nsamples)
+    A, bvec = cls_data(nfeatures, nsamples, k, seed)
 
     n = nfeatures
     m = 2 * n + 1              # x, z, t

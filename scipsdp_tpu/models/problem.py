@@ -3,7 +3,7 @@
 Host-side sparse container (the information content of the reference's
 ``struct SCIP_SDPi`` problem image, src/sdpi/sdpi.c:216-320 and the
 ``SCIPsdpiLoadSDP`` contract, sdpi.c:2329-2358) plus the conversion to the
-TPU-friendly *dense padded* form consumed by the batched interior-point
+device-friendly *dense padded* form consumed by the batched interior-point
 solver (ops/ipm.py).
 
 The canonical problem is the reference's dual form (sdpi.c:37-58):

@@ -1,7 +1,7 @@
 // Native best-first B&B frontier / node pool.
 //
 // The reference delegates tree management to SCIP's C core (node storage,
-// best-bound selection, pruning).  This is the TPU framework's native
+// best-bound selection, pruning).  This is the framework's native
 // equivalent for the host-side runtime: a slab-allocated node pool with a
 // best-bound heap, exposed through a C ABI for ctypes (no pybind11 in this
 // environment).  The Python layer keeps per-node side data (cuts,

@@ -6,7 +6,7 @@ computes all eigenvectors with negative eigenvalues
 (SCIPlapackComputeEigenvectorsNegative), and for each eigenvector v emits
 the linear cut  sum_j (v^T A_j v) y_j >= v^T A_0 v
 (``produceCutFromEigenvector``:896, coefficient computation
-``multiplyConstraintMatrix``:827).  On TPU one batched ``eigh`` yields every
+``multiplyConstraintMatrix``:827).  Here one batched ``eigh`` yields every
 cut of every block of every node at once, and the coefficients are one
 einsum.
 

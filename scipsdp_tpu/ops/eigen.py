@@ -1,6 +1,6 @@
 """Batched dense eigen/linear-algebra helpers (the L0 layer).
 
-TPU-native replacement for the reference's LAPACK interface
+Device replacement for the reference's LAPACK interface
 (src/sdpi/lapack_interface.c: SCIPlapackComputeIthEigenvalue,
 SCIPlapackComputeEigenvectorsNegative, matrix multiplies): everything is
 batched `jnp.linalg.eigh`/`cholesky` over padded dense blocks, jit/vmap
@@ -59,9 +59,8 @@ def max_step_psd_power(L: jnp.ndarray, dM: jnp.ndarray,
     """Like :func:`max_step_psd` but via shifted power iteration instead of
     a full eigendecomposition.
 
-    TPU rationale: XLA's eigh (QDWH) costs ~30 matmul rounds per call; the
-    step rule only needs lambda_max of  -Y = -L^{-1} dM L^{-T}, which a
-    dozen batched matvecs estimate well.  The estimate can slightly
+    The step rule only needs lambda_max of  -Y = -L^{-1} dM L^{-T}, which
+    a dozen batched matvecs estimate well, without a full eigh.  The estimate can slightly
     overestimate the allowed step, so callers pair this with a Cholesky
     probe that shrinks steps leaving the PSD cone (ops/ipm.py).
     """
@@ -92,10 +91,9 @@ def ymat(Linv: jnp.ndarray, dM: jnp.ndarray) -> jnp.ndarray:
     """Congruence transform Y = Linv dM Linv^T used by the PSD max-step
     rules:  M + a dM >= 0  <=>  I + a Y >= 0  when M = L L^T.
 
-    Matmul-only (the caller supplies the explicit triangular inverse):
-    on TPU each blocked triangular-solve kernel costs far more than its
-    FLOPs at IPM block sizes, so the solver computes Linv once per
-    iteration and turns every step-rule solve into two batched matmuls.
+    Matmul-only (the caller supplies the explicit triangular inverse): the
+    solver computes Linv once per iteration and turns every step-rule
+    solve into two batched matmuls.
     """
     T = jnp.einsum("...ab,...bc->...ac", Linv, dM)
     return sym(jnp.einsum("...ac,...dc->...ad", T, Linv))
@@ -125,7 +123,7 @@ def max_step_from_ymat(Y: jnp.ndarray, iters: int = 16) -> jnp.ndarray:
 
 def max_step_eigh_from_ymat(Y: jnp.ndarray) -> jnp.ndarray:
     """Exact variant of :func:`max_step_from_ymat` (full eigendecomposition;
-    the CPU default where eigh is native LAPACK)."""
+    the default step rule)."""
     lam_min = jnp.linalg.eigvalsh(Y)[..., 0]
     safe = lam_min >= -1e-14
     return jnp.where(safe, jnp.inf, -1.0 / jnp.where(safe, -1.0, lam_min))
@@ -150,8 +148,7 @@ def max_step_pos(v: jnp.ndarray, dv: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndar
 def spd_inverse(M: jnp.ndarray, L: jnp.ndarray = None) -> jnp.ndarray:
     """Inverse of a symmetric positive definite matrix via Cholesky.
 
-    Avoids LU decomposition (unsupported in f64 on TPU) and guarantees a
-    symmetric result.  ``L`` may pass a precomputed Cholesky factor.
+    Avoids LU decomposition and guarantees a symmetric result.  ``L`` may pass a precomputed Cholesky factor.
     """
     if L is None:
         L = jnp.linalg.cholesky(M)

@@ -1,6 +1,6 @@
 """Batched primal-dual interior-point SDP solver.
 
-This is the TPU-native replacement for the reference's SDP back-ends
+This is the batched device replacement for the reference's SDP back-ends
 (src/sdpi/sdpisolver_{dsdp,sdpa,mosek}.c) *and* the presolve contract of the
 solver-independent interface (SCIPsdpiSolve, src/sdpi/sdpi.c:3123-3650),
 fused into one jitted function over a *batch* of SDPs that share problem
@@ -68,51 +68,31 @@ from scipsdp_tpu.utils.status import SolverResultStatus
 
 INF_THRESH = 1e19  # values beyond this are treated as infinite
 
+# Stage names (jax.named_scope) that profiler reductions attribute device
+# time to: W-features, Schur Gram, Cholesky factors, triangular inverses.
+STAGES = ("wfeat", "schur_gram", "chol", "tril_inv")
 
-def _schur_product(Wall: jnp.ndarray, settings: IPMSettings) -> jnp.ndarray:
-    """M = Wall @ Wall^T per batch element — THE hot matmul of the IPM.
 
-    Default: one XLA batched matmul (already MXU-shaped).  With
-    ``settings.use_pallas`` a hand-written Pallas TPU kernel
-    (ops/pallas_kernels.py) computes the same product with explicit tiling.
-
-    f64 operands on TPU: the emulated f64 dot materializes ~8x stacked
-    f32 operand copies, so a production-size Wall ((32, 130, 16641) at
-    cls_64) explodes to multi-GB temporaries inside the f64 repair
-    branch — the Gram is computed in F-chunks with an exact f64
-    accumulation instead (same value, bounded temps; round-5 worker-OOM
-    fix)."""
-    if settings.use_pallas and _pallas_ok():
-        from scipsdp_tpu.ops.pallas_kernels import schur_wwt
-        return schur_wwt(Wall)
-    B, mp, F = Wall.shape
-    FC = 2048
-    if (Wall.dtype == jnp.float64 and _pallas_ok() and F > 2 * FC):
-        F_p = -(-F // FC) * FC
-        W_p = jnp.pad(Wall, ((0, 0), (0, 0), (0, F_p - F)))
-
-        def body(c, M):
-            Wc = jax.lax.dynamic_slice_in_dim(W_p, c * FC, FC, axis=2)
-            return M + jnp.einsum("xif,xjf->xij", Wc, Wc)
-
-        M0 = jnp.zeros((B, mp, mp), Wall.dtype)
-        return jax.lax.fori_loop(0, F_p // FC, body, M0)
+@jax.named_scope("schur_gram")
+def _schur_product(Wall: jnp.ndarray) -> jnp.ndarray:
+    """M = Wall @ Wall^T per batch element — THE hot matmul of the IPM
+    (one batched GEMM)."""
     return jnp.einsum("xif,xjf->xij", Wall, Wall)
 
 
-def _wfeat_flat(LxOp, A_t, Lsinv_t, B, mp, budget=128 * 2**20):
+@jax.named_scope("wfeat")
+def _wfeat_flat(LxOp, A_t, Lsinv_t, B, mp, budget=2**30):
     """W features W_j = LxOp A_j Lsinv^T produced DIRECTLY in the
     flattened (B, mp, K*n*n) layout via an mp-chunked scan.
 
     The naive two-einsum chain materializes (B, K, mp, n, n)
-    intermediates whose TPU T(8,128) tile padding doubles the last dim
-    at odd n (129 -> 256): 4.32 GB per buffer at cls_64 B=32 — 17.35 GB
-    program HBM, a compile-time OOM (round 5).  Chunked, the peak
-    intermediate is (B, K, jc, n, n) and the flat output pads ~1.008x.
-    Small shapes take the single-chunk path (identical to the fused
-    einsum chain)."""
+    intermediates; chunking over mp bounds the peak intermediate at
+    (B, K, jc, n, n), about ``budget`` logical bytes at the operands'
+    dtype.  Small shapes take the single-chunk path (identical to the
+    fused einsum chain)."""
     K, _, n, _ = A_t.shape
-    per_j = B * K * (-(-n // 8) * 8) * (-(-n // 128) * 128) * 4
+    itemsize = jnp.dtype(jnp.result_type(LxOp, A_t)).itemsize
+    per_j = B * K * n * n * itemsize
     jc = int(max(1, min(mp, budget // max(per_j, 1))))
 
     def chunk(Asl):
@@ -135,45 +115,18 @@ def _wfeat_flat(LxOp, A_t, Lsinv_t, B, mp, budget=128 * 2**20):
     return W[:, :mp]
 
 
-def _pallas_ok() -> bool:
-    """Mosaic kernels only lower on the TPU backend (trace-time check)."""
-    return jax.default_backend() == "tpu"
-
-
-def _lanes_on(settings: IPMSettings) -> bool:
-    """Lanes-batched factorization kernels enabled (resolved flag, TPU)."""
-    return settings.use_lanes_chol is True and _pallas_ok()
-
-
-def _chol(A: jnp.ndarray, settings: IPMSettings) -> jnp.ndarray:
-    """Batched lower Cholesky (factor-quality path; see _chol_probe for
-    the lanes-batched probe variant).  NaN semantics match potrf."""
-    if settings.use_pallas and A.dtype == jnp.float32 and _pallas_ok():
-        from scipsdp_tpu.ops.pallas_kernels import cholesky
-        return cholesky(A)
+@jax.named_scope("chol")
+def _chol(A: jnp.ndarray) -> jnp.ndarray:
+    """Batched lower Cholesky.  NaN semantics match potrf (a non-PSD
+    input yields NaNs, which the PSD probes test for)."""
     return jnp.linalg.cholesky(A)
 
 
-def _tril_inv(L: jnp.ndarray, settings: IPMSettings) -> jnp.ndarray:
+@jax.named_scope("tril_inv")
+def _tril_inv(L: jnp.ndarray) -> jnp.ndarray:
     """Batched lower-triangular inverse (identity-RHS forward solves)."""
-    if settings.use_pallas and L.dtype == jnp.float32 and _pallas_ok():
-        from scipsdp_tpu.ops.pallas_kernels import tril_inverse
-        return tril_inverse(L)
     eye = jnp.broadcast_to(jnp.eye(L.shape[-1], dtype=L.dtype), L.shape)
     return jax.scipy.linalg.solve_triangular(L, eye, lower=True)
-
-
-def _chol_probe(A: jnp.ndarray, settings: IPMSettings) -> jnp.ndarray:
-    """Cholesky used ONLY as a PSD probe (the caller tests for NaN and
-    discards the factor): lanes-batched Pallas kernel on TPU, 10-25x the
-    XLA blocked path at IPM shapes.  Factor-quality call sites (chol_inv,
-    the Schur factor) stay on XLA: routing them through the lanes kernel
-    measured +26 extra IPM iterations / +8 nodes on example_CLS — probe
-    decisions tolerate implementation rounding, scaling factors do not."""
-    if A.dtype == jnp.float32 and _lanes_on(settings):
-        from scipsdp_tpu.ops.pallas_kernels import cholesky_lanes
-        return cholesky_lanes(A)
-    return jnp.linalg.cholesky(A)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -459,6 +412,21 @@ def ipm_solve(
     settings: IPMSettings,
 ) -> SolveOutput:
     """Solve a batch of SDPs. All shapes static; call under jit."""
+    if settings.dtype == "float32":
+        # an f32 solve is compared against f64 references: keep its
+        # matmuls in true f32 (no TF32 on GPU tensor cores)
+        with jax.default_matmul_precision("float32"):
+            return _ipm_solve(data, b, lb, ub, Gcut, hcut, cutvalid, warm_y,
+                              warm_mask, gaptol_vec, warm_X, ip_point,
+                              feastol_vec, settings=settings)
+    return _ipm_solve(data, b, lb, ub, Gcut, hcut, cutvalid, warm_y,
+                      warm_mask, gaptol_vec, warm_X, ip_point, feastol_vec,
+                      settings=settings)
+
+
+def _ipm_solve(data, b, lb, ub, Gcut, hcut, cutvalid, warm_y, warm_mask,
+               gaptol_vec, warm_X, ip_point, feastol_vec, *,
+               settings: IPMSettings) -> SolveOutput:
     dtype = jnp.float64 if settings.dtype == "float64" else jnp.float32
     b = b.astype(dtype)
     lb = lb.astype(dtype)
@@ -636,96 +604,14 @@ def ipm_solve(
     # static data is cast once, outside the loop.  "refine" additionally
     # assembles RHS/recoveries in f64 and iteratively refines the Schur
     # solve, pushing the f64 handoff from phase32_switch (1e-3) down to
-    # refine_switch (3e-5) — on TPU f64 is software-emulated and ~26x the
-    # cost of f32, so every iteration moved out of the endgame counts.
+    # refine_switch.
     use_refine = settings.phase32 == "refine" and dtype == jnp.float64
     use_lite = settings.phase32 == "lite" and dtype == jnp.float64
     use_phase32 = (settings.phase32 == "on" and dtype == jnp.float64) \
         or use_refine or use_lite
-    # Shape gate on the emulated-f64 branch: lax.cond reserves HBM temps
-    # for BOTH branches, and the full-f64 iteration's reservation at
-    # production shapes is measured in GiB even when it never executes
-    # (4.43 GiB at cls_64 width 8 — AOT memory_analysis, round 5;
-    # enough that coexisting width programs crash the v5e worker).
-    # Above the threshold the refine tier runs ALONE: NaN'd or stalled
-    # instances FAIL to the recovery ladder (probe/penalty rungs, host
-    # ladder) instead of an in-graph f64 repair — the reference's
-    # fast->stable escalation is likewise a solver handoff, not an
-    # in-process retry (sdpisolver_sdpa.cpp:1416-1441).
-    # Threshold calibration (round 5): the refine tier alone CANNOT
-    # carry cls_64 (75 of 79 node relaxations failed without the f64
-    # repair, even with Jacobi-equilibrated f32 factors — the f32 Schur
-    # preconditioner stops contracting at these condition numbers), so
-    # the gate engages only beyond every current family size; the
-    # watchdog problem the gate originally chased is handled by the
-    # time-adaptive rounds-per-dispatch in core/turbo.py instead.
-    _F_feat = sum(int(np.shape(a)[0]) * int(np.shape(a)[-1]) ** 2
-                  for a in data.A) + int(np.shape(Gall)[-2])
-    no_f64_branch = use_refine and (mp * _F_feat > 20_000_000)
     if use_phase32:
         A32 = bmap(lambda t: data.A[t].astype(jnp.float32))
         G32 = Gall.astype(jnp.float32)
-    # double-single Pallas kernels for the refine tier's exact
-    # contractions (ops/df32.py): each replaces an emulated-f64 einsum
-    # (a chain of small XLA kernels) with ONE Mosaic kernel at ~2^-45
-    # accuracy — validated on-device (PERFORMANCE.md round 3)
-    use_df32 = (use_refine and settings.use_df32 != "off" and _pallas_ok())
-    if use_df32:
-        from scipsdp_tpu.ops import df32 as _dd
-
-        # loop-invariant operands, split into hi/lo pairs once:
-        # per-bucket A flattened to (mp, K*n*n) with feature order (k,a,b)
-        A_flat_pair = bmap(lambda t: _dd.split64(
-            jnp.transpose(data.A[t], (1, 0, 2, 3)).reshape(mp, -1)))
-        Gall_pair = _dd.split64(Gall)
-        GallT_pair = _dd.split64(jnp.swapaxes(Gall, 1, 2))
-    # fused direction kernels (ops/fused.py): the whole rhs-assembly /
-    # Schur-solve / recovery chain as 3 Mosaic kernels per direction and
-    # bucket instead of ~30 launches.  Only where every kernel's VMEM
-    # residency fits comfortably — operands PLUS in-kernel intermediates,
-    # INCLUDING the batch-scaled buffers (K2's Wall/(B,mp,F) temporaries
-    # alone are ~B/2 x the A image; gating on A only crashed mid-size
-    # batched solves, advisor r3).  At MXU-filling sizes the launch
-    # overhead this fusion removes no longer dominates and the XLA path
-    # is right anyway.
-    _fl = 4   # f32 bytes
-
-    def _tile_pad(a: int, b: int) -> int:
-        """VMEM elements of an (.., a, b) buffer: Mosaic tiles the
-        trailing two dims to (8, 128) multiples — an n=10 block costs
-        16*128 elements per matrix, 20x its logical size.  Gating on
-        logical sizes OOM'd the kernel stack at many-small-blocks shapes
-        (MkP: K=46, n=10, B=32 — 16.2 MB > the 16 MB scoped limit)."""
-        return (((a + 7) // 8) * 8) * (((b + 127) // 128) * 128)
-
-    _P_rows = Gall.shape[1]
-    _F_feat = _P_rows + sum(
-        int(data.A[t].shape[0]) * int(data.A[t].shape[-1]) ** 2
-        for t in range(NB))
-    # K2: Wall + 2 (B,mp,F) product pairs + reduction temps + Minv
-    _k2_bytes = _fl * (4 * B * _tile_pad(mp, _F_feat)
-                       + B * _tile_pad(mp, mp) + 12 * B * _tile_pad(1, mp))
-    _k13_bytes = 0
-    _pad_ok = True
-    for _t in range(NB):
-        _Kt, _, _nt, _ = np.shape(data.A[_t])
-        _nn = _tile_pad(int(_nt), int(_nt))
-        # tiny blocks tile-pad catastrophically (n=10 -> (16,128): 20x its
-        # logical size) and the kernels' internal temporaries then blow
-        # the 16 MB scoped-vmem stack in ways this static estimate cannot
-        # see (observed: 16.2 MB stack at MkP's n=10 shapes while the
-        # operand estimate passed).  Require a sane padding ratio.
-        _pad_ok = _pad_ok and _nn <= 4 * int(_nt) * int(_nt)
-        _a_img = 2 * int(_Kt) * mp * _nn                    # hi/lo pair
-        _bkn = B * int(_Kt) * _nn
-        _k1 = _fl * (_a_img + 9 * _bkn)     # Rc/XRp pairs, Sinv, P pair, out
-        _k3 = _fl * (_a_img + 16 * _bkn)    # + dS/dX pairs, X pair, pad
-        _k13_bytes = max(_k13_bytes, _k1, _k3)
-    use_fused = (use_df32 and settings.fused_direction != "off" and _pad_ok
-                 and max(_k2_bytes, _k13_bytes) <= 12 * 2**20)
-    if use_fused:
-        from scipsdp_tpu.ops import fused as _fu
-        A_bkt_pair = bmap(lambda t: _dd.split64(data.A[t]))
 
     class EvalOut(NamedTuple):
         Rp: Tuple[jnp.ndarray, ...]   # dual-infeasibility residual Z(y)-S
@@ -761,9 +647,8 @@ def ipm_solve(
         {a >= 0 : I + a Y >= 0} is an interval containing 0, so any
         candidate whose probe factorizes certifies every smaller step too;
         the largest passing candidate is within 2x of the exact max-step.
-        Replaces the power iteration + two full probe rounds (measured
-        10.2 of the refine tier's 11.6 ms/iter on v5e at CLS shapes) with
-        a single stacked kernel per bucket."""
+        Replaces the power iteration + two full probe rounds with a
+        single stacked factorization per bucket."""
         f32p = jnp.float32
         capv = 1.0 / settings.tau
         nc = len(_PROBE_MULTS)
@@ -788,7 +673,7 @@ def ipm_solve(
                       for k in range(nc)]
             trials += [eyem + cd[k][:, None, None, None] * Ys
                        for k in range(nc)]
-            Lp = _chol_probe(jnp.concatenate(trials, axis=1), settings)
+            Lp = _chol(jnp.concatenate(trials, axis=1))
             nanb = jnp.any(jnp.isnan(Lp), axis=(2, 3))   # (B, 2*nc*Kt)
             for k in range(nc):
                 okx[k] = okx[k] & ~jnp.any(
@@ -897,18 +782,15 @@ def ipm_solve(
         """One Mehrotra predictor-corrector direction + step-length pass
         with every factorization/solve/matmul in dtype ``dtp``.
 
-        Kernel-count discipline (v5e: each blocked Cholesky / triangular-
-        solve kernel costs far more than its FLOPs at IPM block sizes):
-        per bucket, ONE stacked Cholesky + ONE stacked triangular inverse
+        Per bucket, ONE stacked Cholesky + ONE stacked triangular inverse
         cover both X and S; the Schur factor is inverted explicitly so
         both direction solves and all PSD max-step rules become batched
         matmuls (ops/eigen.ymat)."""
         f32 = dtp == jnp.float32
         if f32:
-            # TPU matmuls on f32 inputs default to bfloat16 passes — far
-            # too coarse for Newton directions (measured: NaN by iteration
-            # ~7).  Force true-f32 accumulation; still ~10-20x cheaper than
-            # emulated f64.
+            # reduced-precision matmul passes (TF32 on GPU tensor cores)
+            # are far too coarse for Newton directions (NaN within a few
+            # iterations): force true-f32 accumulation
             with jax.default_matmul_precision("float32"):
                 return _iter_products_impl(st, ev, dtp)
         return _iter_products_impl(st, ev, dtp)
@@ -938,8 +820,8 @@ def ipm_solve(
         def chol_inv(t):
             Kt = X[t].shape[1]
             both = jnp.concatenate([X[t], S[t]], axis=1)   # (B, 2K, n, n)
-            L = _chol(both, settings)
-            Linv = _tril_inv(L, settings)
+            L = _chol(both)
+            Linv = _tril_inv(L)
             return (L[:, :Kt], L[:, Kt:], Linv[:, :Kt], Linv[:, Kt:])
 
         LXS = bmap(chol_inv)
@@ -955,7 +837,7 @@ def ipm_solve(
         # iteration).  Factorized form: W_j = Lx^T A_j Ls^{-T} gives
         # M = sum_{t,k} <W_i, W_j>_F; LP/cut rows contribute
         # G^T diag(xl/sl) G = Wg^T Wg — everything stacks into one feature
-        # axis and the whole Schur complement is ONE MXU matmul.
+        # axis and the whole Schur complement is ONE batched matmul.
         def wfeat(t):
             # W_j = Lx^T A_j Ls^{-T}, emitted flat (mp-chunked at large
             # shapes — see _wfeat_flat; the 'xkba' spec transposes Lx)
@@ -965,7 +847,7 @@ def ipm_solve(
         Wg = jnp.sqrt(wl)[:, :, None] * Gd                 # (B, P, mp)
         Wall = jnp.concatenate(
             list(bmap(wfeat)) + [jnp.swapaxes(Wg, 1, 2)], axis=2)
-        M = _schur_product(Wall, settings)
+        M = _schur_product(Wall)
         wlb = jnp.where(pre.lbmask, xlb / slb, 0.0)
         wub = jnp.where(pre.ubmask, xub / sub, 0.0)
         M = M + (wlb + wub)[:, :, None] * eye_mp[None]
@@ -984,13 +866,13 @@ def ipm_solve(
             dM = jnp.maximum(jnp.einsum("xii->xi", M), 1e-30)
             dsc = 1.0 / jnp.sqrt(dM)
             Ms = M * dsc[:, :, None] * dsc[:, None, :]
-            Lm = _chol(Ms, settings)
-            Lminv = _tril_inv(Lm, settings)
+            Lm = _chol(Ms)
+            Lminv = _tril_inv(Lm)
             Minv = (jnp.einsum("xba,xbc->xac", Lminv, Lminv)
                     * dsc[:, :, None] * dsc[:, None, :])
         else:
-            Lm = _chol(M, settings)
-            Lminv = _tril_inv(Lm, settings)
+            Lm = _chol(M)
+            Lminv = _tril_inv(Lm)
             Minv = jnp.einsum("xba,xbc->xac", Lminv, Lminv)  # Lm^-T Lm^-1
 
         lite = f32 and settings.phase32 == "lite"
@@ -1170,7 +1052,7 @@ def ipm_solve(
                     probe = jnp.concatenate(
                         [X[t] + ap[:, None, None, None] * dX[t],
                          S[t] + ad[:, None, None, None] * dS[t]], axis=1)
-                    Lp = _chol_probe(probe, settings)
+                    Lp = _chol(probe)
                     nan_half = jnp.any(jnp.isnan(Lp), axis=(2, 3))
                     okx = okx & ~jnp.any(nan_half[:, :Kt], axis=1)
                     oks = oks & ~jnp.any(nan_half[:, Kt:], axis=1)
@@ -1192,8 +1074,8 @@ def ipm_solve(
         """f32-factorization / f64-assembly Mehrotra pass ("refine" mode).
 
         Factor-class kernels (Cholesky, triangular inverse, W features,
-        Schur Gram, step-rule congruences/probes) run in f32 — on TPU each
-        is ~26x cheaper than its emulated-f64 twin.  Everything whose
+        Schur Gram, step-rule congruences/probes) run in f32 (true f32:
+        the scope below keeps TF32 out).  Everything whose
         ACCURACY the Newton step depends on near convergence stays f64:
         the corrector targets (X S products at size ~mu), the RHS built
         from the carried f64 residuals, the dS/dX recoveries, and the
@@ -1227,8 +1109,8 @@ def ipm_solve(
                 # factor cast to f32 were tried instead: the affected
                 # instances stall either way — they need the f64
                 # downstream (Schur/W/recovery) too.
-                L = _chol(scaled, settings)
-                Linv = _tril_inv(L, settings) * dinv[..., None, :]
+                L = _chol(scaled)
+                Linv = _tril_inv(L) * dinv[..., None, :]
                 return (Linv[:, :Kt], Linv[:, Kt:])
 
             chol_inv = jax.named_scope("rf_cholinv")(chol_inv)
@@ -1239,57 +1121,26 @@ def ipm_solve(
                 "xkba,xkbc->xkac", Lsinv[t], Lsinv[t])))
             Sinv64 = bmap(lambda t: Sinv32[t].astype(dtype))
 
-            # exact-contraction dispatch: df32 compensated Pallas kernels
-            # on TPU, emulated-f64 einsums elsewhere.  Sinv is f32-VALUED
-            # either way (preconditioner-quality inverse); exactness is
-            # only needed in the cancelling products/sums.
-            if use_df32:
-                def mm_f64(a, b):
-                    return _dd.bmm64(a, b)
+            # exact f64 contractions.  Sinv is f32-VALUED
+            # (preconditioner-quality inverse); exactness is only needed in
+            # the cancelling products/sums.
+            def mm_f64(a, b):
+                return jnp.einsum("...ab,...bc->...ac", a.astype(dtype),
+                                  b.astype(dtype))
 
-                def astar_f64(P):
-                    """sum_t einsum('kjab,xkba->xj', A_t, P_t)."""
-                    out = None
-                    for t in range(NB):
-                        Pt = jnp.swapaxes(P[t], -1, -2).reshape(B, -1)
-                        o = _dd.contract_long64(A_flat_pair[t], Pt)
-                        out = o if out is None else out + o
-                    return out
+            def astar_f64(P):
+                return bsum(bmap(lambda t: jnp.einsum(
+                    "kjab,xkba->xj", data.A[t], P[t])))
 
-                def aapply_f64(dy):
-                    """einsum('kjab,xj->xkab', A_t, dy) per bucket."""
-                    outs = []
-                    for t in range(NB):
-                        flat = _dd.contract_short64(A_flat_pair[t], dy)
-                        K_t, _, n_t, _ = data.A[t].shape
-                        outs.append(flat.reshape(B, K_t, n_t, n_t))
-                    return tuple(outs)
+            def aapply_f64(dy):
+                return bmap(lambda t: jnp.einsum(
+                    "kjab,xj->xkab", data.A[t], dy))
 
-                def gt_f64(w):
-                    """einsum('xpm,xp->xm', Gall, w)."""
-                    return _dd.contract_long64(GallT_pair, w)
+            def gt_f64(w):
+                return jnp.einsum("xpm,xp->xm", Gall, w)
 
-                def grow_f64(dy):
-                    """einsum('xpm,xm->xp', Gall, dy)."""
-                    return _dd.contract_long64(Gall_pair, dy)
-            else:
-                def mm_f64(a, b):
-                    return jnp.einsum("...ab,...bc->...ac", a.astype(dtype),
-                                      b.astype(dtype))
-
-                def astar_f64(P):
-                    return bsum(bmap(lambda t: jnp.einsum(
-                        "kjab,xkba->xj", data.A[t], P[t])))
-
-                def aapply_f64(dy):
-                    return bmap(lambda t: jnp.einsum(
-                        "kjab,xj->xkab", data.A[t], dy))
-
-                def gt_f64(w):
-                    return jnp.einsum("xpm,xp->xm", Gall, w)
-
-                def grow_f64(dy):
-                    return jnp.einsum("xpm,xm->xp", Gall, dy)
+            def grow_f64(dy):
+                return jnp.einsum("xpm,xm->xp", Gall, dy)
 
             # W features + Schur Gram in f32 (the FLOP-heavy kernels)
             def wfeat(t):
@@ -1313,7 +1164,7 @@ def ipm_solve(
             Wg = jnp.sqrt(wl64).astype(f32)[:, :, None] * G32
             Wall = jnp.concatenate(
                 list(bmap(wfeat)) + [jnp.swapaxes(Wg, 1, 2)], axis=2)
-            M = _schur_product(Wall, settings)
+            M = _schur_product(Wall)
             eye_mp32 = jnp.eye(mp, dtype=f32)
             M = M + (wlb64 + wub64).astype(f32)[:, :, None] * eye_mp32[None]
             M = jnp.where(free_outer, M, 0.0)
@@ -1333,25 +1184,19 @@ def ipm_solve(
             dM = jnp.maximum(jnp.einsum("xii->xi", M), 1e-30)
             dsc = 1.0 / jnp.sqrt(dM)
             Ms = M * dsc[:, :, None] * dsc[:, None, :]
-            Lm = _chol(Ms, settings)
-            Lminv = _tril_inv(Lm, settings)
+            Lm = _chol(Ms)
+            Lminv = _tril_inv(Lm)
             Minv = jnp.einsum("xba,xbc->xac", Lminv, Lminv)
             dsc64 = dsc.astype(dtype)
 
             diag64 = wlb64 + wub64
             reg64 = reg.astype(dtype)
-            if use_df32:
-                def mv_M(vf):
-                    wt = _dd.contract_short64(Wall, vf)
-                    return (_dd.contract_long64(Wall, wt)
-                            + diag64 * vf + reg64[:, None] * vf)
-            else:
-                Wall64 = Wall.astype(dtype)
+            Wall64 = Wall.astype(dtype)
 
-                def mv_M(vf):
-                    wt = jnp.einsum("xif,xi->xf", Wall64, vf)
-                    return (jnp.einsum("xif,xf->xi", Wall64, wt)
-                            + diag64 * vf + reg64[:, None] * vf)
+            def mv_M(vf):
+                wt = jnp.einsum("xif,xi->xf", Wall64, vf)
+                return (jnp.einsum("xif,xf->xi", Wall64, wt)
+                        + diag64 * vf + reg64[:, None] * vf)
 
             def precond(r64):
                 """f32 back-solve through the equilibrated factor."""
@@ -1376,72 +1221,10 @@ def ipm_solve(
 
             # X * Rp is direction-independent: hoisted out of direction()
             XRp = bmap(lambda t: mm_f64(st.X[t], ev.Rp[t]))
-            if use_fused:
-                # direction-independent hi/lo pairs for the fused kernels
-                XRp_pairs = bmap(lambda t: _dd.split64(XRp[t]))
-                Rp_pairs = bmap(lambda t: _dd.split64(ev.Rp[t]))
-                X_pairs = bmap(lambda t: _dd.split64(st.X[t]))
-                dsc_pair = _dd.split64(dsc64)
-                diag_pair = _dd.split64(jnp.broadcast_to(diag64, (B, mp)))
-                reg_pair = _dd.split64(jnp.broadcast_to(
-                    reg64[:, None], (B, mp)))
-
-            def direction_fused(Rc, rcl, rclb, rcub):
-                """Newton direction via the fused Mosaic kernels: per
-                bucket ONE rhs-assembly kernel and ONE recovery kernel,
-                plus ONE fused Schur solve — same math as ``direction``
-                below at the same double-single accuracy."""
-                Rc_pairs = bmap(lambda t: _dd.split64(Rc[t]))
-                rhs_sdp = None
-                for t in range(NB):
-                    oh, ol = _fu.rhs_bucket(A_bkt_pair[t], Rc_pairs[t],
-                                            XRp_pairs[t], Sinv32[t])
-                    c = _dd.join64(oh, ol)
-                    rhs_sdp = c if rhs_sdp is None else rhs_sdp + c
-                rhs = (
-                    rhs_sdp
-                    + gt_f64(jnp.where(pre.rowmask,
-                                       (rcl - st.xl * ev.rpl) / st.sl,
-                                       0.0))
-                    + jnp.where(pre.lbmask,
-                                (rclb - st.xlb * ev.rplb) / st.slb, 0.0)
-                    - jnp.where(pre.ubmask,
-                                (rcub - st.xub * ev.rpub) / st.sub, 0.0)
-                    - ev.rd
-                )
-                dy_pair = _fu.schur_solve_fused(
-                    Wall, _dd.split64(jnp.where(pre.fix, 0.0, rhs)),
-                    Minv, dsc_pair, diag_pair, reg_pair, pre.fix,
-                    int(max(settings.schur_refine, 0)))
-                dy = _dd.join64(*dy_pair)
-                dS, dX = [], []
-                for t in range(NB):
-                    dSp, dXp = _fu.recover_bucket(
-                        A_bkt_pair[t], dy_pair, Rp_pairs[t], Rc_pairs[t],
-                        X_pairs[t], Sinv32[t], pad_outer[t])
-                    dS.append(jnp.where(pad_outer[t],
-                                        _dd.join64(*dSp), 0.0))
-                    dX.append(jnp.where(pad_outer[t],
-                                        sym(_dd.join64(*dXp)), 0.0))
-                dS = tuple(dS)
-                dX = tuple(dX)
-                dsl = jnp.where(pre.rowmask, grow_f64(dy) + ev.rpl, 0.0)
-                dslb = jnp.where(pre.lbmask, dy + ev.rplb, 0.0)
-                dsub = jnp.where(pre.ubmask, -dy + ev.rpub, 0.0)
-                dxl = jnp.where(pre.rowmask, (rcl - st.xl * dsl) / st.sl,
-                                0.0)
-                dxlb = jnp.where(pre.lbmask,
-                                 (rclb - st.xlb * dslb) / st.slb, 0.0)
-                dxub = jnp.where(pre.ubmask,
-                                 (rcub - st.xub * dsub) / st.sub, 0.0)
-                return dy, dX, dS, dxl, dsl, dxlb, dslb, dxub, dsub
-
             def direction(Rc, rcl, rclb, rcub):
                 """Newton direction with exact assembly/recovery (inputs
                 and outputs f64; only the Schur back-solve passes through
-                f32; contractions via the df32 kernels on TPU)."""
-                if use_fused:
-                    return direction_fused(Rc, rcl, rclb, rcub)
+                f32)."""
                 PsiSinv = bmap(lambda t: mm_f64(Rc[t] - XRp[t],
                                                 Sinv32[t]))
                 rhs = (
@@ -1691,14 +1474,10 @@ def ipm_solve(
             st, ev, pre_c = carry
         else:
             st, ev = carry
-        if use_refine and no_f64_branch:
-            # shape-gated: the refine tier alone (see no_f64_branch note)
-            use32 = jnp.asarray(True)
-            prods = iter_products_refine(st, ev)
-        elif use_refine:
+        if use_refine:
             # "refine" from the FIRST iteration (a plain-f32 warm tier was
             # measured counterproductive: its weaker directions cost more
-            # refine iterations than they save); emulated f64 only below
+            # refine iterations than they save); full f64 only below
             # refine_switch (default 0 = never) or on the f32-NaN escape
             active = ~st.done
             use32 = (jnp.all(jnp.where(active,
@@ -1740,16 +1519,13 @@ def ipm_solve(
             # a solve failure: skip the update and run the next iteration
             # in the f64 branch.  The escalation is a one-iteration REPAIR,
             # not a permanent tier change: nan32 clears after each f64
-            # iteration, so the batch drops back to the ~8x-cheaper refine
-            # tier (a sticky nan32 measured 364 ms of a 901 ms CLS B=8
-            # turbo chunk spent in emulated-f64 iterations; worst case of
-            # ping-ponging is one wasted f32 iteration per f64 one)
+            # iteration, so the batch drops back to the refine tier (worst
+            # case of ping-ponging is one wasted f32 iteration per f64 one)
             soft = bad & use32 & ~st.done
-            if (getattr(settings, "nan32_policy", "repair") == "fail"
-                    or no_f64_branch):
+            if getattr(settings, "nan32_policy", "repair") == "fail":
                 # hand NaN'd instances straight to the recovery ladder
                 # (turbo probe rung / host ladder) instead of re-running
-                # the batch in emulated f64
+                # the batch in f64
                 failed = st.failed | (bad & ~st.done)
                 nan32 = st.nan32
             else:
@@ -1810,7 +1586,7 @@ def ipm_solve(
         # CLS shapes the fast tier's accuracy floor sits above gaptol for
         # ~30% of node relaxations; failing them flooded the recovery
         # ladder (148 of 487 nodes unsolved in one turbo chunk).
-        can_esc = (use_refine or use_phase32) and not no_f64_branch
+        can_esc = use_refine or use_phase32
         esc_now = (stalled & ~new.done & ~conv & ~new.esc) if can_esc \
             else jnp.zeros_like(stalled)
         failed2 = new.failed | (stalled & ~new.done & ~conv & ~esc_now)

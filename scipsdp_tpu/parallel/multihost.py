@@ -1,12 +1,12 @@
 """Multi-host branch-and-bound scaffolding.
 
 The reference has no distributed mode at all (SURVEY.md §2.5: the only MPI
-symbol is MUMPS's sequential stub).  The TPU-native scale-out follows
+symbol is MUMPS's sequential stub).  The scale-out follows
 BASELINE.json's north star:
 
-* each host owns a shard of the open-node frontier (partitioned over DCN);
+* each host owns a shard of the open-node frontier (partitioned over the network);
 * every host runs the same batched device solves on its local chips
-  (node-batch + block axes over ICI, `parallel/mesh.py`);
+  (node-batch + block axes over NVLink, `parallel/mesh.py`);
 * incumbent values and global dual bounds synchronize periodically with a
   host-collective (all-gather of (incumbent, best_open_bound) pairs);
 * work stealing: hosts with empty frontiers receive node ranges from the

@@ -67,7 +67,7 @@ _PARAM_MAP = {
     # SCIP freq semantics: -1 off, 0 root-only, k every k-th depth; our
     # diving_freq counts batches (0 = off).  Root-only (freq = 0) maps
     # to a sparse cadence (every 100 batches ~ once or twice per
-    # testset-scale solve) — a per-batch dive measured 3x the testset
+    # testset-scale solve) — a per-batch dive multiplied the testset
     # wall under scip-5.set, far beyond the tier's intent
     "heuristics/sdpfracdiving/freq": ("bb", "diving_freq",
                                       lambda raw: (0 if float(raw) < 0

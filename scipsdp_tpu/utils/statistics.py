@@ -23,6 +23,8 @@ def format_relax_statistics(stats, iface=None) -> str:
     avg = stats.ipm_iterations / max(stats.relax_solves, 1)
     row("average IPM iterations", f"{avg:.2f}")
     row("fastest-tier (direct) decisions", getattr(stats, "ndirect", 0))
+    row("device tree-loop nodes", getattr(stats, "turbo_nodes", 0))
+    row("device tree-loop bail-outs", getattr(stats, "turbo_bails", 0))
     row("penalty-formulation decisions", stats.npenalty)
     row("unsolved relaxations", stats.nunsolved)
     row("heuristic solutions found", stats.heur_found)

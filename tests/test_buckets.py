@@ -1,6 +1,7 @@
 """Heterogeneous block-size bucketing tests (SURVEY hard part (ii))."""
 
 import numpy as np
+import pytest
 
 from scipsdp_tpu.core.branchbound import solve_misdp
 from scipsdp_tpu.core.sdpi import SDPInterface
@@ -57,8 +58,8 @@ def test_hetero_solve():
 
 
 def test_wfeat_flat_chunked_matches_naive():
-    """The mp-chunked flat W-feature producer (round-5 cls_64 HBM OOM
-    fix) must agree with the naive two-einsum chain exactly."""
+    """The mp-chunked flat W-feature producer must agree with the naive
+    two-einsum chain exactly."""
     import jax.numpy as jnp
     import numpy as np
 
@@ -74,28 +75,38 @@ def test_wfeat_flat_chunked_matches_naive():
     want = np.asarray(jnp.transpose(W, (0, 2, 1, 3, 4)).reshape(B, mp, -1))
     got_one = np.asarray(_wfeat_flat(Lx, A, Ls, B, mp))
     np.testing.assert_allclose(got_one, want, rtol=1e-12)
-    # tiny budget forces multiple chunks incl. a ragged final chunk
+    # tiny budget (3 features of f64) forces multiple chunks incl. a
+    # ragged final chunk
     got_chunked = np.asarray(_wfeat_flat(Lx, A, Ls, B, mp,
-                                         budget=3 * B * K * 8 * 128 * 4))
+                                         budget=3 * B * K * n * n * 8))
     np.testing.assert_allclose(got_chunked, want, rtol=1e-12)
 
 
-def test_schur_product_f64_chunked_matches(monkeypatch):
-    """The F-chunked f64 Schur Gram (round-5 TPU f64-emulation OOM fix)
-    must equal the plain einsum exactly."""
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_wfeat_flat_budget_counts_logical_bytes(dtype):
+    """The chunk budget is logical bytes at the operands' dtype: a budget
+    of exactly mp features runs one chunk, one feature less scans."""
+    import jax
     import jax.numpy as jnp
-    import numpy as np
 
-    import scipsdp_tpu.ops.ipm as ipm
-    from scipsdp_tpu.utils.config import IPMSettings
+    from scipsdp_tpu.ops.ipm import _wfeat_flat
 
-    rng = np.random.RandomState(5)
-    W = jnp.asarray(rng.randn(2, 7, 4100))   # F > 2*FC triggers chunking
-    monkeypatch.setattr(ipm, "_pallas_ok", lambda: True)
-    monkeypatch.setattr(ipm, "_schur_product",
-                        ipm._schur_product.__wrapped__
-                        if hasattr(ipm._schur_product, "__wrapped__")
-                        else ipm._schur_product)
-    got = np.asarray(ipm._schur_product(W, IPMSettings(use_pallas=False)))
-    want = np.asarray(jnp.einsum("xif,xjf->xij", W, W))
-    np.testing.assert_allclose(got, want, rtol=1e-12)
+    rng = np.random.RandomState(4)
+    B, K, mp, n = 2, 1, 5, 6
+    Lx = jnp.asarray(rng.randn(B, K, n, n), dtype)
+    A = jnp.asarray(rng.randn(K, mp, n, n), dtype)
+    Ls = jnp.asarray(rng.randn(B, K, n, n), dtype)
+    per_j = B * K * n * n * jnp.dtype(dtype).itemsize
+
+    def scans(budget):
+        jaxpr = jax.make_jaxpr(
+            lambda a, b, c: _wfeat_flat(a, b, c, B, mp, budget=budget))(
+                Lx, A, Ls)
+        return "scan" in str(jaxpr)
+
+    assert not scans(mp * per_j)
+    assert scans(mp * per_j - 1)
+    one = np.asarray(_wfeat_flat(Lx, A, Ls, B, mp, budget=mp * per_j))
+    many = np.asarray(_wfeat_flat(Lx, A, Ls, B, mp, budget=2 * per_j))
+    np.testing.assert_allclose(many, one,
+                               rtol=1e-5 if dtype == "float32" else 1e-12)

@@ -30,9 +30,9 @@ def test_mkp_family_solves():
 
 
 def test_mkp12_turbo_completes_without_bail():
-    """Round-4 regression: mkp_12's ladder-hard relaxations made turbo
+    """Regression: mkp_12's ladder-hard relaxations made turbo
     accumulate nunsolved past its bail threshold and fall back to the
-    per-rung host ladder (the 0.32 nodes/s TPU cliff).  The in-graph
+    per-rung host ladder, one dispatch per rung.  The in-graph
     penalty rung (core/turbo.py tb_pen_rung) must keep the device path
     alive and reach the known optimum 30.0."""
     import numpy as np

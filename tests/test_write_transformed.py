@@ -72,15 +72,20 @@ def test_roundtrip_objsense_offset(tmp_path):
     assert abs(r.objval - 7.0) < 1e-4
 
 
-def test_cli_write_transformed(tmp_path, instances_dir):
+def test_cli_write_transformed(tmp_path):
+    from scipsdp_tpu.models.families import cardinality_least_squares
+    from scipsdp_tpu.models.writers import write_sdpa
+
+    src = str(tmp_path / "cls.dat-s")
+    write_sdpa(cardinality_least_squares(6, 12, 3, seed=0), src)
     out = str(tmp_path / "t.cbf")
     cp = subprocess.run(
-        [sys.executable, "-m", "scipsdp_tpu",
-         os.path.join(instances_dir, "example_small.dat-s"),
+        [sys.executable, "-m", "scipsdp_tpu", src,
          "--cpu", "-q", "--node-limit", "1", "--write-transformed", out],
         capture_output=True, text=True,
         env={**os.environ, "JAX_PLATFORMS": "cpu"},
-        cwd="/root/repo", timeout=300)
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        timeout=300)
     assert cp.returncode == 0, cp.stderr[-2000:]
     assert os.path.exists(out)
     back = read_problem(out)
